@@ -4,7 +4,7 @@ VERDICT round-2 item #5: the Python oracle's wall time over-states what a
 native (MSVC/gcc) build of the reference would take, because its rotation
 scan and multi-start ICP are Python-paced around C-speed k-d queries. This
 script re-runs the oracle protocol over all 23 golden pairs with those two
-loops compiled to C++ (kss_icp_tpu/native/oracle_hot.cpp — same algorithm,
+loops compiled to C++ (kss_icp/native/oracle_hot.cpp — same algorithm,
 same convergence semantics, f32 points like PCL) and records a CALIBRATED
 reference rate:
 
@@ -37,13 +37,13 @@ ORACLE_JSON = REPO / "BASELINE_ORACLE.json"
 
 
 def main() -> int:
-    from kss_icp_tpu.native import oracle_hot as oh
-    from kss_icp_tpu.oracle import (
+    from kss_icp.native import oracle_hot as oh
+    from kss_icp.oracle import (
         OracleInitRegistration,
         aivs_simplify,
         pcr_qm,
     )
-    from kss_icp_tpu.stress import golden_corpus
+    from kss_icp.stress import golden_corpus
 
     if not oh.available():
         print("native oracle_hot unavailable (g++ build failed)", file=sys.stderr)

@@ -1,5 +1,5 @@
 """Category-level challenge benchmark: procedural ModelNet40/SHREC/RGB-D
-analogues (kss_icp_tpu/challenge.py).
+analogues (kss_icp/challenge.py).
 
 Registers each scenario's corpus with the production bench config
 (auto-escalation on) and judges success by POSE error — transform_rmse
@@ -7,7 +7,7 @@ between recovered- and truth-aligned source — since partial overlap and
 non-rigid deformation make 1-NN RMSE unrepresentative by construction.
 
 Usage:
-  python scripts/challenge_test.py                  # ambient platform (TPU)
+  python scripts/challenge_test.py                  # default platform (GPU)
   python scripts/challenge_test.py --platform cpu
   python scripts/challenge_test.py --scenario partial
 """
@@ -27,7 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=[None, "cpu", "gpu"])
     ap.add_argument("--scenario", default=None,
                     choices=[None, "category", "partial", "deform",
                              "scale", "partial_hard"])
@@ -40,13 +40,14 @@ def main() -> int:
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ksstpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from kss_icp.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from bench import bench_config
-    from kss_icp_tpu.challenge import challenge_corpus, transform_rmse
-    from kss_icp_tpu.core.transforms import apply_similarity
-    from kss_icp_tpu.parallel.batch import register_many
+    from kss_icp.challenge import challenge_corpus, transform_rmse
+    from kss_icp.core.transforms import apply_similarity
+    from kss_icp.parallel.batch import register_many
 
     cfg = bench_config()
     summary = {}

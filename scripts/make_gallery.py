@@ -29,36 +29,39 @@ def main() -> int:
     ap.add_argument("--models", nargs="*", default=None)
     ap.add_argument("--challenge", action="store_true",
                     help="render the procedural challenge corpus "
-                         "(kss_icp_tpu/challenge.py) instead of a "
+                         "(kss_icp/challenge.py) instead of a "
                          ".gird/.wlop directory")
     ap.add_argument("--hard", action="store_true",
                     help="with --challenge: include the ~60%%-overlap "
                          "hard tier")
     ap.add_argument("--largescan", action="store_true",
                     help="render the Room-class 100k scan pair "
-                         "(kss_icp_tpu/largescan.py)")
+                         "(kss_icp/largescan.py)")
     args = ap.parse_args()
 
-    if args.platform:
-        import jax
+    import jax
 
+    from kss_icp.utils.compile_cache import enable_compile_cache
+
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
+    enable_compile_cache()
 
     import numpy as np
 
     import jax.numpy as jnp
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.core.transforms import apply_similarity
-    from kss_icp_tpu.io.formats import load_points
-    from kss_icp_tpu.metrics import registration_measure
-    from kss_icp_tpu.models.kss_icp import register_pair
-    from kss_icp_tpu.viz import Trackball, render_clouds, write_png
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.core.transforms import apply_similarity
+    from kss_icp.io.formats import load_points
+    from kss_icp.metrics import registration_measure
+    from kss_icp.models.kss_icp import register_pair
+    from kss_icp.viz import Trackball, render_clouds, write_png
 
     data = Path(args.data_dir)
     out = Path(args.out_dir)
     out.mkdir(parents=True, exist_ok=True)
     if args.largescan:
-        from kss_icp_tpu.largescan import room_pair
+        from kss_icp.largescan import room_pair
 
         src_r, tgt_r, _gt = room_pair(100_000, seed=0)
         c = tgt_r.mean(axis=0)
@@ -68,7 +71,7 @@ def main() -> int:
         models = sorted(pairs)
         args.challenge = True  # reuse the in-memory pair path below
     elif args.challenge:
-        from kss_icp_tpu.challenge import challenge_corpus
+        from kss_icp.challenge import challenge_corpus
 
         pairs = {f"{scen}_{nm.replace('/', '_')}": (s, t)
                  for scen, ps, _thr in challenge_corpus(

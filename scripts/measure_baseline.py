@@ -1,4 +1,4 @@
-"""Measure the reference baseline with the CPU oracle (kss_icp_tpu/oracle.py).
+"""Measure the reference baseline with the CPU oracle (kss_icp/oracle.py).
 
 Runs the faithful numpy/scipy replica of the reference pipeline
 (KSS_ICP.hpp:69-131 + registrationMeasure.hpp:47-98) over every bundled
@@ -26,7 +26,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 def load_pairs(limit=None):
     # Single source of truth with bench.py: the measured baseline must
     # cover exactly the benchmark corpus.
-    from kss_icp_tpu.stress import golden_corpus
+    from kss_icp.stress import golden_corpus
 
     pairs = [(n, np.asarray(s, np.float64), np.asarray(t, np.float64))
              for n, s, t in golden_corpus()]
@@ -40,7 +40,7 @@ def main() -> int:
                                          / "BASELINE_ORACLE.json"))
     args = ap.parse_args()
 
-    from kss_icp_tpu.oracle import pcr_qm, register_pair_oracle
+    from kss_icp.oracle import pcr_qm, register_pair_oracle
 
     pairs = load_pairs(args.limit)
     print(f"oracle baseline over {len(pairs)} golden pairs", flush=True)
@@ -69,7 +69,7 @@ def main() -> int:
     per_pair = [r["seconds"] for r in results.values()]
     summary = {
         "protocol": ("faithful numpy/scipy replica of the reference pipeline "
-                     "(kss_icp_tpu/oracle.py): AIVS resample -> 9^3=729-"
+                     "(kss_icp/oracle.py): AIVS resample -> 9^3=729-"
                      "rotation coarse grid (the reference's float-accumulated"
                      " [0,6.3) loop yields 9 angles/axis, the 9th aliasing "
                      "~0.017 rad) -> multi-start PCL-semantics ICP -> PCR_QM"),

@@ -4,7 +4,7 @@ Launched N times by scripts/run_multiprocess.py (or tests/test_multiprocess.py)
 with args: <process_id> <num_processes> <coordinator_address>. Each process
 owns `--xla_force_host_platform_device_count` virtual CPU devices; together
 they form one global mesh (the DCN analogue — on real hardware the same code
-paths shard over multi-host TPU slices via jax.distributed).
+paths shard over several GPU hosts via jax.distributed).
 
 Exercises, over the GLOBAL mesh:
   1. register_batch sharded along "pairs" (shard_map; zero cross-pair
@@ -22,7 +22,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "")
     + " --xla_force_host_platform_device_count="
-    + os.environ.get("KSSTPU_LOCAL_DEVICES", "4")
+    + os.environ.get("KSSICP_LOCAL_DEVICES", "4")
 ).strip()
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -36,7 +36,7 @@ def main() -> int:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 
-    from kss_icp_tpu.parallel.mesh import distributed_init, make_mesh
+    from kss_icp.parallel.mesh import distributed_init, make_mesh
 
     distributed_init(coordinator_address=coord, num_processes=nproc,
                      process_id=pid)
@@ -49,9 +49,9 @@ def main() -> int:
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.models.kss_icp import resample_pairs
-    from kss_icp_tpu.parallel.batch import register_batch
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.models.kss_icp import resample_pairs
+    from kss_icp.parallel.batch import register_batch
 
     cfg = KSSICPConfig(
         rotation_steps=4, max_candidates=4, max_resample_points=128,

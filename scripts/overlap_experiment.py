@@ -20,7 +20,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 
+from kss_icp.utils.compile_cache import enable_compile_cache
+
 jax.config.update("jax_platforms", "cpu")
+enable_compile_cache()
 
 import numpy as np
 import jax.numpy as jnp
@@ -46,9 +49,9 @@ def main():
     keeps = [float(a) for a in args] or [0.92, 0.8]
 
     from bench import bench_config
-    from kss_icp_tpu.challenge import partial_corpus, transform_rmse
-    from kss_icp_tpu.core.transforms import apply_similarity
-    from kss_icp_tpu.models.kss_icp import (
+    from kss_icp.challenge import partial_corpus, transform_rmse
+    from kss_icp.core.transforms import apply_similarity
+    from kss_icp.models.kss_icp import (
         register_overlap_resampled,
         register_resampled,
         resample_pairs,

@@ -16,7 +16,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 
+from kss_icp.utils.compile_cache import enable_compile_cache
+
 jax.config.update("jax_platforms", "cpu")
+enable_compile_cache()
 
 import numpy as np
 import jax.numpy as jnp
@@ -30,10 +33,10 @@ def main():
     keeps = [float(a) for a in args] or [0.92, 0.8]
 
     from bench import bench_config
-    from kss_icp_tpu.challenge import (
+    from kss_icp.challenge import (
         category_corpus, partial_corpus, transform_rmse)
-    from kss_icp_tpu.core.transforms import apply_similarity
-    from kss_icp_tpu.parallel.batch import register_many
+    from kss_icp.core.transforms import apply_similarity
+    from kss_icp.parallel.batch import register_many
 
     cfg = bench_config()
     tiers = ([("category", category_corpus())] if category

@@ -1,17 +1,16 @@
-"""Profiler-backed roofline capture (round 4, VERDICT r3 item 6).
+"""Profiler-backed capture of the bench programs.
 
 Captures a jax.profiler trace of the fused batch-23 and batch-78 bench
-programs on the TPU and summarizes where the time goes — measured
-compute/memory/dispatch fractions instead of BASELINE.md's FLOP-count MFU
-estimate.
+programs on the GPU and summarizes where the time goes — measured
+compute/memory/dispatch fractions instead of a FLOP-count estimate.
 
 The trace is parsed from the profiler's own .xplane.pb via
 tensorflow.profiler if available; otherwise the script reports the
 trace directory for manual inspection and falls back to an op-level
 cost summary from jax.stages.Compiled.cost_analysis().
 
-Run on the TPU:
-  nohup python scripts/profile_bench.py > /tmp/profile_bench.log 2>&1 &
+Run on the GPU (trace and summary land under runs/profile_bench/):
+  python scripts/profile_bench.py
 """
 
 from __future__ import annotations
@@ -26,13 +25,15 @@ sys.path.insert(0, str(REPO))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/ksstpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from kss_icp.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-TRACE_DIR = "/tmp/ksstpu_trace"
+OUT_DIR = REPO / "runs" / "profile_bench"
+TRACE_DIR = str(OUT_DIR / "trace")
 
 
 def log(*a):
@@ -41,7 +42,7 @@ def log(*a):
 
 def main() -> int:
     import bench
-    from kss_icp_tpu.stress import golden_corpus, remesh_corpus, stress_corpus
+    from kss_icp.stress import golden_corpus, remesh_corpus, stress_corpus
 
     cfg = bench.bench_config()
     pipeline = bench.make_programs()[0]
@@ -135,7 +136,8 @@ def main() -> int:
         log("no tensorboard profile plugin; trace saved for offline "
             "inspection")
 
-    out = Path("/tmp/profile_bench.json")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out = OUT_DIR / "profile_bench.json"
     out.write_text(json.dumps(summaries, indent=1))
     log(f"wrote {out}")
     print(json.dumps(summaries))

@@ -37,21 +37,22 @@ def main() -> int:
     ap.add_argument("--full", action="store_true",
                     help="reference-full multi-start protocol")
     ap.add_argument("--threshold", type=float, default=0.05)
-    ap.add_argument("--platform", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=[None, "cpu", "gpu"])
     args = ap.parse_args()
 
     import jax
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/ksstpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from kss_icp.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.core.transforms import apply_similarity
-    from kss_icp_tpu.metrics import registration_measure_padded
-    from kss_icp_tpu.models.kss_icp import register_resampled, resample_batch
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.core.transforms import apply_similarity
+    from kss_icp.metrics import registration_measure_padded
+    from kss_icp.models.kss_icp import register_resampled, resample_batch
 
     if args.full:
         cfg = KSSICPConfig(max_candidates=32, multistart_mode="full",
@@ -70,7 +71,7 @@ def main() -> int:
         m[:n] = True
         return out, m
 
-    from kss_icp_tpu.stress import stress_corpus
+    from kss_icp.stress import stress_corpus
 
     srcs, tgts, names = [], [], []
     for name, s_pts, t_pts in stress_corpus():

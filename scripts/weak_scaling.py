@@ -4,7 +4,7 @@ Shards a pair batch proportional to device count over a "pairs" mesh and
 reports throughput + efficiency vs the 1-device run (BASELINE.md target:
 >=80% at >=2 hosts). On a real multi-chip slice run as-is; elsewhere it
 fakes an N-device CPU mesh (xla_force_host_platform_device_count), which
-measures partitioning overhead rather than real ICI behavior — cross-pair
+measures partitioning overhead rather than real interconnect behavior — cross-pair
 communication is zero by construction, so the CPU-mesh number is the
 pessimistic bound.
 
@@ -27,13 +27,13 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--devices", type=int, default=8)
     ap.add_argument("--pairs-per-device", type=int, default=2)
-    ap.add_argument("--tpu", action="store_true",
-                    help="use real devices (multi-chip slice) instead of a CPU mesh")
+    ap.add_argument("--real-devices", action="store_true",
+                    help="use the machine's own devices instead of a CPU mesh")
     args = ap.parse_args()
 
-    # CPU-mesh mode is the default (the one-real-chip dev box); pass --tpu on
-    # an actual multi-chip slice. Flags must land before backend init.
-    if not args.tpu:
+    # CPU-mesh mode is the default; pass --real-devices on a multi-GPU host.
+    # Flags must land before backend init.
+    if not args.real_devices:
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
             + f" --xla_force_host_platform_device_count={args.devices}"
@@ -41,16 +41,19 @@ def main() -> int:
 
     import jax
 
-    if not args.tpu:
+    from kss_icp.utils.compile_cache import enable_compile_cache
+
+    if not args.real_devices:
         jax.config.update("jax_platforms", "cpu")
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.parallel.batch import register_batch
-    from kss_icp_tpu.parallel.mesh import make_mesh
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.parallel.batch import register_batch
+    from kss_icp.parallel.mesh import make_mesh
 
     n_dev = min(args.devices, jax.device_count())
     cfg = KSSICPConfig(
@@ -106,7 +109,7 @@ def main() -> int:
     # launches; measures the sharded ladder's partitioning overhead.
     import dataclasses
 
-    from kss_icp_tpu.parallel.batch import register_many
+    from kss_icp.parallel.batch import register_many
 
     force = dataclasses.replace(
         cfg, escalate_threshold=0.0, overlap_threshold=0.0,
@@ -144,10 +147,10 @@ def main() -> int:
     }
     out = {
         "metric": "weak_scaling_efficiency",
-        "mode": "tpu" if args.tpu else "cpu_mesh",
+        "mode": "devices" if args.real_devices else "cpu_mesh",
         "throughput_pairs_per_sec": results,
     }
-    if args.tpu:
+    if args.real_devices:
         # Real devices: throughput should grow ~linearly with device count.
         out["efficiency_vs_1dev"] = effs
     else:
@@ -161,7 +164,7 @@ def main() -> int:
     out["escalating_throughput_pairs_per_sec"] = esc_results
     ebase = esc_results.get(1)
     if ebase:
-        if args.tpu:
+        if args.real_devices:
             out["escalating_efficiency_vs_1dev"] = {
                 nd: thr / (ebase * nd)
                 for nd, thr in esc_results.items() if nd > 1}

@@ -4,14 +4,14 @@ cut / classification semantics (Method_AIVS_SimPro.hpp)."""
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.ops.aivs import (
+from kss_icp.ops.aivs import (
     accurate_cut,
     aivs_resample,
     box_quotas,
     classify_curvature,
     stratified_fps,
 )
-from kss_icp_tpu.ops.spatial import build_voxel_grid
+from kss_icp.ops.spatial import build_voxel_grid
 from helpers import random_cloud
 
 
@@ -78,7 +78,7 @@ def test_aivs_resample_exact_n(rng):
     out, sel = aivs_resample(pts, mask, 120, boxes_per_axis=3)
     assert int(np.asarray(sel).sum()) == 120
     # Selected points are spread: mean NN spacing within 2.5x of global FPS.
-    from kss_icp_tpu.ops.resample import farthest_point_sampling
+    from kss_icp.ops.resample import farthest_point_sampling
 
     idx, fmask = farthest_point_sampling(pts, mask, 120)
     p = np.asarray(pts)
@@ -112,7 +112,7 @@ def test_aivs_resample_packed_prefix_is_stratified(rng):
     # prefix therefore holds every box's round-0 picks before any round-1
     # pick, i.e. a stratified uniform subsample (the contract the pipeline's
     # coarse_points/screen_points slicing needs).
-    from kss_icp_tpu.ops.aivs import aivs_resample_packed
+    from kss_icp.ops.aivs import aivs_resample_packed
 
     pts, mask = _padded(rng, 450)
     out, sel = aivs_resample_packed(pts, mask, 120, pad=256, boxes_per_axis=3)
@@ -125,7 +125,7 @@ def test_aivs_resample_packed_prefix_is_stratified(rng):
     # global-FPS subsample of the same size.
     k = n_sel // 2
     prefix = np.asarray(out)[:k]
-    from kss_icp_tpu.ops.resample import farthest_point_sampling
+    from kss_icp.ops.resample import farthest_point_sampling
 
     idx, fmask = farthest_point_sampling(pts, mask, k)
     fps_pts = np.asarray(pts)[np.asarray(idx)[np.asarray(fmask)]]
@@ -142,10 +142,10 @@ def test_pipeline_with_aivs_resampler(rng):
     # cfg.resampler="aivs" drives the whole registration pipeline through
     # the reference's default sampler (VERDICT round-1 item #7).
 
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.core.transforms import apply_similarity, euler_xyz_matrix
-    from kss_icp_tpu.metrics import registration_measure
-    from kss_icp_tpu.models.kss_icp import register_pair
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.core.transforms import apply_similarity, euler_xyz_matrix
+    from kss_icp.metrics import registration_measure
+    from kss_icp.models.kss_icp import register_pair
 
     cfg = KSSICPConfig(
         rotation_steps=8, max_candidates=8, max_resample_points=256,

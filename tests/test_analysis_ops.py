@@ -8,15 +8,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kss_icp_tpu.measure_mesh import angle_statistics, mesh_angle_report, triangle_angles
-from kss_icp_tpu.ops.normals import (
+from kss_icp.measure_mesh import angle_statistics, mesh_angle_report, triangle_angles
+from kss_icp.ops.normals import (
     facet_normals,
     normal_angle_errors,
     normal_error_measure,
     vertex_normals_from_mesh,
 )
-from kss_icp_tpu.ops.vcm import vcm_edges
-from kss_icp_tpu.ops.voronoi2d import lloyd_relax, voronoi_cells
+from kss_icp.ops.vcm import vcm_edges
+from kss_icp.ops.voronoi2d import lloyd_relax, voronoi_cells
 
 
 # --- mesh angles -----------------------------------------------------------

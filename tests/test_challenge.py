@@ -1,4 +1,4 @@
-"""Procedural category-level challenge corpus (kss_icp_tpu/challenge.py) —
+"""Procedural category-level challenge corpus (kss_icp/challenge.py) —
 the ModelNet40/SHREC/RGB-D analogue the reference claims but does not ship
 (README.md:9, Examples/{modelNet40,shrec,RGB3D}.pdf). The full sweep runs
 in scripts/challenge_test.py; here: corpus contract, determinism, the
@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 from scipy.spatial import cKDTree
 
-from kss_icp_tpu.challenge import (
+from kss_icp.challenge import (
     FAMILIES,
     _instance,
     category_corpus,
@@ -18,7 +18,7 @@ from kss_icp_tpu.challenge import (
     transform_rmse,
     truth_aligned,
 )
-from kss_icp_tpu.config import KSSICPConfig
+from kss_icp.config import KSSICPConfig
 
 
 def test_corpus_shapes_and_determinism():
@@ -78,8 +78,8 @@ def test_category_subset_registers_with_identifiable_pose():
     """The symmetry-breaking warp makes the pose identifiable: a
     reduced-budget solve must recover the ground-truth similarity (pose
     error, not just surface RMSE) on one instance of each family."""
-    from kss_icp_tpu.core.transforms import apply_similarity
-    from kss_icp_tpu.parallel.batch import register_many
+    from kss_icp.core.transforms import apply_similarity
+    from kss_icp.parallel.batch import register_many
     import jax
 
     corpus = category_corpus(instances=1, n_points=2000)

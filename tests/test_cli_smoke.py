@@ -11,13 +11,13 @@ import sys
 import numpy as np
 import pytest
 
-from kss_icp_tpu.io.formats import load_points, save_xyz
+from kss_icp.io.formats import load_points, save_xyz
 from helpers import random_cloud
 
 
 def _run(args, timeout=240):
     return subprocess.run(
-        [sys.executable, "-m", "kss_icp_tpu", *args, "--platform", "cpu"],
+        [sys.executable, "-m", "kss_icp", *args, "--platform", "cpu"],
         capture_output=True, text=True, timeout=timeout,
     )
 
@@ -53,7 +53,7 @@ def test_serve_jsonl_no_x64(cloud_file, tmp_path):
                       "output": str(out)})
     bad = json.dumps({"source": "/nonexistent.xyz", "target": str(cloud_file)})
     r = subprocess.run(
-        [sys.executable, "-m", "kss_icp_tpu", "serve", "--platform", "cpu",
+        [sys.executable, "-m", "kss_icp", "serve", "--platform", "cpu",
          "--full-pad", "2048", "--accurate", "2", "--iterations", "20",
          "--max-candidates", "2"],
         input=req + "\n" + bad + "\n",
@@ -85,7 +85,7 @@ def test_bench_dir_no_x64(tmp_path):
     batched protocol + manifest pose scoring over a directory."""
     import json
 
-    from kss_icp_tpu.transfer import TransferRecord, apply_record, save_transfer_log
+    from kss_icp.transfer import TransferRecord, apply_record, save_transfer_log
 
     rng = np.random.default_rng(3)
     d = tmp_path / "ds"

@@ -4,8 +4,8 @@ known rotations."""
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.core.transforms import euler_xyz_matrix
-from kss_icp_tpu.models.coarse import (
+from kss_icp.core.transforms import euler_xyz_matrix
+from kss_icp.models.coarse import (
     coarse_align,
     grid_angles,
     local_minima_mask,
@@ -101,7 +101,7 @@ def test_coarse_align_recovers_grid_rotation(rng):
 def test_error_metric_variants(rng):
     # masked_nn_error reproduces all three reference field flavors
     # (initRegistrationKSS.hpp:406-479) against a numpy oracle.
-    from kss_icp_tpu.ops.nn import masked_nn_error
+    from kss_icp.ops.nn import masked_nn_error
 
     q = rng.normal(size=(40, 3)).astype(np.float32)
     r = rng.normal(size=(64, 3)).astype(np.float32)

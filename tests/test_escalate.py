@@ -7,7 +7,7 @@ serially and never pays a lockstep tail)."""
 import numpy as np
 import pytest
 
-from kss_icp_tpu.escalate import escalate_rerun, padded_selection, polish_rerun
+from kss_icp.escalate import escalate_rerun, padded_selection, polish_rerun
 
 
 def test_padded_selection():
@@ -72,9 +72,9 @@ def test_two_stage_converge_matches_single_stage():
     from the composed transform continues the cut iteration sequence."""
     import dataclasses
 
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.parallel.batch import register_many
-    from kss_icp_tpu.stress import rot_xyz
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.parallel.batch import register_many
+    from kss_icp.stress import rot_xyz
 
     rng = np.random.default_rng(3)
     base = rng.uniform(-1, 1, (800, 3)).astype(np.float32)
@@ -102,7 +102,7 @@ def test_escalate_rerun_difficulty_sort_chunks():
     exit their lockstep loops early) while keep-better semantics hold."""
     import numpy as np
 
-    from kss_icp_tpu.escalate import escalate_rerun
+    from kss_icp.escalate import escalate_rerun
 
     fitness = np.array([0.001, 0.9, 0.002, 0.5, 0.003, 0.7], np.float32)
     seen = []

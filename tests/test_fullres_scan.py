@@ -6,16 +6,16 @@ registration — without any (P, P) intermediate."""
 import numpy as np
 import pytest
 
-from kss_icp_tpu.config import KSSICPConfig
+from kss_icp.config import KSSICPConfig
 
 
 @pytest.mark.slow
 def test_register_60k_point_scan():
     import jax.numpy as jnp
 
-    from kss_icp_tpu.core.transforms import apply_similarity
-    from kss_icp_tpu.metrics import registration_measure
-    from kss_icp_tpu.models.kss_icp import register_pair
+    from kss_icp.core.transforms import apply_similarity
+    from kss_icp.metrics import registration_measure
+    from kss_icp.models.kss_icp import register_pair
 
     rng = np.random.default_rng(3)
     n = 60_000
@@ -41,8 +41,8 @@ def test_register_60k_point_scan():
 def test_octree_then_normals_100k():
     import jax.numpy as jnp
 
-    from kss_icp_tpu.ops.normals import estimate_normals
-    from kss_icp_tpu.ops.simplify import octree_simplify
+    from kss_icp.ops.normals import estimate_normals
+    from kss_icp.ops.simplify import octree_simplify
 
     rng = np.random.default_rng(4)
     n = 100_000

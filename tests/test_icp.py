@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.core.transforms import euler_xyz_matrix
-from kss_icp_tpu.models.icp import ICPParams, icp, kabsch
-from kss_icp_tpu.config import KSSICPConfig
+from kss_icp.core.transforms import euler_xyz_matrix
+from kss_icp.models.icp import ICPParams, icp, kabsch
+from kss_icp.config import KSSICPConfig
 from helpers import random_cloud
 
 
@@ -119,9 +119,9 @@ def test_point_to_plane_recovers_transform(rng):
     known rigid transform (opt-in improvement, not in the reference)."""
     import jax.numpy as jnp
 
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.models.icp import ICPParams, icp
-    from kss_icp_tpu.ops.normals import estimate_normals
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.models.icp import ICPParams, icp
+    from kss_icp.ops.normals import estimate_normals
     from helpers import random_cloud
 
     tgt = random_cloud(rng, 600).astype(np.float32)
@@ -145,10 +145,10 @@ def test_pipeline_point_to_plane_variant(rng):
 
     import jax.numpy as jnp
 
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.core.transforms import apply_similarity, euler_xyz_matrix
-    from kss_icp_tpu.metrics import registration_measure
-    from kss_icp_tpu.models.kss_icp import register_pair
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.core.transforms import apply_similarity, euler_xyz_matrix
+    from kss_icp.metrics import registration_measure
+    from kss_icp.models.kss_icp import register_pair
     from helpers import random_cloud
 
     tgt = random_cloud(rng, 800)

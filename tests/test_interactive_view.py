@@ -1,6 +1,6 @@
 """Interactive terminal viewer (viz/interactive.py) — the reference's
 GLUT trackball loop (View.h:1-22, Main_KSS_ICP.cpp:1-14) re-created for
-a display-less TPU host. Tests drive the pure state machine; the TTY
+a display-less accelerator host. Tests drive the pure state machine; the TTY
 loop (run_interactive) is a thin wrapper around it."""
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ import numpy as np
 
 
 def _viewer(size=(24, 16)):
-    from kss_icp_tpu.viz.interactive import InteractiveViewer
+    from kss_icp.viz.interactive import InteractiveViewer
 
     rng = np.random.default_rng(0)
     pts = rng.normal(size=(200, 3)).astype(np.float32)
@@ -42,7 +42,7 @@ def test_rotation_changes_frame():
 
 
 def test_ansi_encoding_halfblocks():
-    from kss_icp_tpu.viz.interactive import image_to_ansi
+    from kss_icp.viz.interactive import image_to_ansi
 
     img = np.zeros((4, 3, 3), np.uint8)
     img[0, :, 0] = 255          # first pixel row red

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from kss_icp_tpu.io.formats import (
+from kss_icp.io.formats import (
     load_off,
     load_ply,
     load_points,
@@ -78,7 +78,7 @@ def test_bundled_off(reference_data_dir):
 
 
 def test_bundled_normal_cache(reference_data_dir):
-    from kss_icp_tpu.io.formats import load_normals
+    from kss_icp.io.formats import load_normals
 
     n = load_normals(reference_data_dir / "registration" / "Bunny.normal")
     assert n.shape == (35947, 3)
@@ -87,7 +87,7 @@ def test_bundled_normal_cache(reference_data_dir):
 
 def test_load_ply_vertex_data_normals_colors(tmp_path):
     """Full CPLYLoader surface: x y z nx ny nz r g b per vertex."""
-    from kss_icp_tpu.io.formats import load_ply_vertex_data
+    from kss_icp.io.formats import load_ply_vertex_data
 
     ply = tmp_path / "full.ply"
     ply.write_text(
@@ -107,7 +107,7 @@ def test_load_ply_vertex_data_normals_colors(tmp_path):
 
 
 def test_load_ply_vertex_data_points_only(tmp_path):
-    from kss_icp_tpu.io.formats import load_ply_vertex_data, save_ply
+    from kss_icp.io.formats import load_ply_vertex_data, save_ply
 
     pts = np.array([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]])
     p = tmp_path / "min.ply"
@@ -120,7 +120,7 @@ def test_load_ply_vertex_data_points_only(tmp_path):
 def test_ply_mesh_roundtrip_all_formats(tmp_path, rng):
     """load_mesh('x.ply') returns (V, F) with PlyLoad.cpp:118-172 semantics
     across ascii / binary LE / binary BE bodies (VERDICT r3 item 7)."""
-    from kss_icp_tpu.io.formats import load_mesh
+    from kss_icp.io.formats import load_mesh
 
     pts = rng.normal(size=(20, 3)).astype(np.float32)
     tris = np.array([[0, 1, 2], [2, 3, 4], [4, 5, 6]], np.int64)
@@ -137,7 +137,7 @@ def test_ply_mesh_roundtrip_all_formats(tmp_path, rng):
 def test_ply_mesh_fan_triangulation(tmp_path):
     """A quad face fan-triangulates exactly like the reference's (0,t,t+1)
     loop (PlyLoad.cpp:150-171)."""
-    from kss_icp_tpu.io.formats import load_mesh
+    from kss_icp.io.formats import load_mesh
 
     p = tmp_path / "quad.ply"
     p.write_text(
@@ -162,8 +162,8 @@ def test_ply_big_endian_points(tmp_path, rng):
 
 def test_measure_mesh_consumes_ply(tmp_path):
     """measure_mesh works end-to-end on a PLY mesh (VERDICT r3 missing #4)."""
-    from kss_icp_tpu.io.formats import load_mesh
-    from kss_icp_tpu.measure_mesh import mesh_angle_report
+    from kss_icp.io.formats import load_mesh
+    from kss_icp.measure_mesh import mesh_angle_report
 
     pts = np.array(
         [[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]], np.float32)

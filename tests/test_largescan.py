@@ -1,6 +1,6 @@
-"""Room/block-class large-scan protocol (kss_icp_tpu/largescan.py) at
+"""Room/block-class large-scan protocol (kss_icp/largescan.py) at
 CPU-sized shapes: the same octree -> FPS -> register -> full-res-metric
-path bench.py times at 200k points on TPU (reference protocol:
+path bench.py and chip_smoke.py time at 200k points on the GPU (reference protocol:
 EXE/start_Cuda.bat Room runs + Method_Octree.hpp:16-108)."""
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ import numpy as np
 
 
 def test_room_scene_deterministic_and_sized():
-    from kss_icp_tpu.largescan import room_scene
+    from kss_icp.largescan import room_scene
 
     a = room_scene(5000, seed=3, sample=0)
     b = room_scene(5000, seed=3, sample=0)
@@ -24,21 +24,21 @@ def test_room_scene_deterministic_and_sized():
 
 
 def test_room_pair_ground_truth_roundtrip():
-    from kss_icp_tpu.largescan import room_pair
+    from kss_icp.largescan import room_pair
 
     src, tgt, gt = room_pair(n_points=2000, seed=1, noise=0.0)
     # src = R @ base + t with the recorded gt; mapping back must land on
     # the base sampling of the scene (not on tgt — different sampling).
     back = ((src - gt["t"]) / gt["s"]) @ gt["R"]
-    from kss_icp_tpu.largescan import room_scene
+    from kss_icp.largescan import room_scene
 
     base = room_scene(2000, 1, sample=1)
     np.testing.assert_allclose(back, base, atol=1e-4)
 
 
 def test_largescan_end_to_end_small():
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.largescan import run_largescan
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.largescan import run_largescan
 
     cfg = KSSICPConfig(
         max_candidates=6, coarse_points=512, coarse_target_points=512,
@@ -55,4 +55,4 @@ def test_largescan_end_to_end_small():
     # Full-res RMSE sits at the sampling-density floor (~the 9 cm mean
     # spacing at 20k points over ~150 m^2), far below the room extent.
     assert out["rmse"] < 0.2, out
-    assert out["metric_tflops"] > 0
+    assert out["metric_pairs_per_s"] > 0

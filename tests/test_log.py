@@ -6,7 +6,7 @@ import json
 import numpy as np
 import pytest
 
-from kss_icp_tpu.utils.log import JsonlLogger
+from kss_icp.utils.log import JsonlLogger
 
 
 def _lines(buf):

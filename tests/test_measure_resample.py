@@ -4,8 +4,8 @@ surface proxy."""
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.measure_resample import simplification_measure
-from kss_icp_tpu.ops.resample import fps_points
+from kss_icp.measure_resample import simplification_measure
+from kss_icp.ops.resample import fps_points
 from helpers import random_cloud
 
 

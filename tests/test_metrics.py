@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from kss_icp_tpu.metrics import registration_measure
+from kss_icp.metrics import registration_measure
 from helpers import random_cloud
 
 
@@ -34,16 +34,3 @@ def test_metric_chunked_consistency(rng):
     g1 = registration_measure(a, t, chunk=None)
     g2 = registration_measure(a, t, chunk=128)
     np.testing.assert_allclose(g1["mse"], g2["mse"], rtol=1e-6)
-
-
-def test_measure_pallas_route_matches_xla(rng):
-    """The Pallas metric route (interpret mode on CPU) must agree with XLA."""
-    from helpers import random_cloud
-    from kss_icp_tpu.metrics import registration_measure
-
-    a = random_cloud(rng, 700)
-    t = random_cloud(rng, 900)
-    m_x = registration_measure(a, t, use_pallas=False)
-    m_p = registration_measure(a, t, use_pallas=True)
-    for k in ("mse", "rmse", "mae"):
-        assert abs(m_x[k] - m_p[k]) < 1e-6, (k, m_x, m_p)

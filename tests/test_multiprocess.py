@@ -5,7 +5,7 @@ via jax.distributed + gloo CPU collectives.
 The worker (scripts/multiprocess_worker.py) runs resample_pairs +
 register_batch over the global "pairs" mesh and a cross-process psum; this
 launcher asserts both workers succeed. On real hardware the same code paths
-shard over multi-host TPU slices (DCN), which this environment cannot
+shard over several GPU hosts, which this environment cannot
 provide — this is the faithful CPU stand-in.
 """
 
@@ -34,7 +34,7 @@ def test_two_process_mesh_registration():
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)  # worker sets its own device count
     env["JAX_PLATFORMS"] = "cpu"
-    env["KSSTPU_LOCAL_DEVICES"] = "4"
+    env["KSSICP_LOCAL_DEVICES"] = "4"
     procs = [
         subprocess.Popen(
             [sys.executable, str(WORKER), str(pid), "2", coord],

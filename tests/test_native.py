@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from kss_icp_tpu.io.formats import load_points, save_ply, save_xyz
-from kss_icp_tpu.native import available, load_points_batch, load_points_native
+from kss_icp.io.formats import load_points, save_ply, save_xyz
+from kss_icp.native import available, load_points_batch, load_points_native
 
 pytestmark = pytest.mark.skipif(not available(), reason="native lib unavailable")
 
@@ -65,12 +65,12 @@ def test_batch_loader(reference_data_dir):
 
 
 def test_missing_file_returns_none():
-    assert load_points_native("/tmp/does_not_exist_ksstpu.xyz") is None
+    assert load_points_native("/tmp/does_not_exist_kssicp.xyz") is None
 
 
 def test_native_writer_roundtrip(tmp_path, rng):
-    from kss_icp_tpu.io.formats import load_points, save_xyz
-    from kss_icp_tpu.native import available, save_xyz_native
+    from kss_icp.io.formats import load_points, save_xyz
+    from kss_icp.native import available, save_xyz_native
 
     pts = rng.normal(size=(123, 3))
     p = tmp_path / "out.xyz"

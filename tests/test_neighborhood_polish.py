@@ -17,7 +17,7 @@ def _pair(n=600, seed=3):
     v = rng.uniform(-1, 1, n)
     z = 0.35 * np.sin(2.2 * u) * np.cos(1.7 * v)
     tgt = np.stack([u, v, z], -1).astype(np.float32)
-    from kss_icp_tpu.stress import rot_xyz
+    from kss_icp.stress import rot_xyz
 
     R = rot_xyz(0.8, 0.4, 1.2)
     src = (tgt @ R.T + np.array([0.2, -0.1, 0.3])).astype(np.float32)
@@ -27,8 +27,8 @@ def _pair(n=600, seed=3):
 def test_polish_never_worse_and_changes_nothing_when_off():
     import jax.numpy as jnp
 
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.models.kss_icp import register_resampled, resample_pairs
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.models.kss_icp import register_resampled, resample_pairs
 
     cfg = KSSICPConfig(
         rotation_steps=4, max_candidates=4, max_resample_points=256,
@@ -65,8 +65,8 @@ def test_polish_never_worse_and_changes_nothing_when_off():
 def test_tier_path_also_polishes():
     import jax.numpy as jnp
 
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.models.kss_icp import register_resampled, resample_pairs
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.models.kss_icp import register_resampled, resample_pairs
 
     cfg = KSSICPConfig(
         rotation_steps=4, max_candidates=4, max_resample_points=256,

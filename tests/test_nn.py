@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.ops.nn import (
+from kss_icp.ops.nn import (
     knn,
     masked_mean_nn_distance,
     masked_mean_nn_sqdist,
@@ -96,7 +96,7 @@ def test_knn_streaming_matches_dense(rng):
     # The streaming path (query chunks x reference tiles, running top-k
     # merge) must reproduce the dense path exactly, including masking and
     # non-divisible chunk remainders.
-    from kss_icp_tpu.ops.nn import knn_streaming
+    from kss_icp.ops.nn import knn_streaming
 
     q = rng.normal(size=(197, 3)).astype(np.float32)
     r = rng.normal(size=(331, 3)).astype(np.float32)
@@ -127,7 +127,7 @@ def test_knn_auto_streams_large_cloud():
     # the dense (P, P) matrix would be 40 GB at 10^5 points — and normals
     # must come out unit-length. Verified against the dense path on a
     # subsample.
-    from kss_icp_tpu.ops.normals import estimate_normals
+    from kss_icp.ops.normals import estimate_normals
 
     rng2 = np.random.default_rng(7)
     n = 40960  # (n*n = 1.7e9 elements > the 2^25 dense limit)
@@ -159,7 +159,7 @@ class TestTrimmedOps:
     def test_trimmed_masked_mean_basic(self):
         import jax.numpy as jnp
 
-        from kss_icp_tpu.ops.nn import trimmed_masked_mean
+        from kss_icp.ops.nn import trimmed_masked_mean
 
         v = jnp.asarray([5.0, 1.0, 3.0, 2.0, 100.0, 4.0])
         m = jnp.asarray([True] * 6)
@@ -172,7 +172,7 @@ class TestTrimmedOps:
     def test_trimmed_masked_mean_ignores_invalid(self):
         import jax.numpy as jnp
 
-        from kss_icp_tpu.ops.nn import trimmed_masked_mean
+        from kss_icp.ops.nn import trimmed_masked_mean
 
         v = jnp.asarray([0.001, 9.0, 1.0, 3.0, 2.0])
         m = jnp.asarray([False, True, True, True, True])  # 4 valid
@@ -182,7 +182,7 @@ class TestTrimmedOps:
     def test_masked_quantile_threshold(self):
         import jax.numpy as jnp
 
-        from kss_icp_tpu.ops.nn import masked_quantile_threshold
+        from kss_icp.ops.nn import masked_quantile_threshold
 
         v = jnp.asarray([4.0, 1.0, 3.0, 2.0])
         m = jnp.ones(4, bool)
@@ -205,7 +205,7 @@ class TestTrimmedOps:
         design premise)."""
         import jax.numpy as jnp
 
-        from kss_icp_tpu.ops.nn import masked_nn_error
+        from kss_icp.ops.nn import masked_nn_error
 
         # target: segment [0, 10]; source: crop [0, 7] of the same curve
         t = np.linspace(0, 10, 400)
@@ -227,8 +227,8 @@ class TestTrimmedOps:
         far points would otherwise drag the Kabsch update."""
         import jax.numpy as jnp
 
-        from kss_icp_tpu.models.icp import ICPParams, icp
-        from kss_icp_tpu.config import KSSICPConfig
+        from kss_icp.models.icp import ICPParams, icp
+        from kss_icp.config import KSSICPConfig
 
         t = rng.uniform(-1, 1, (600, 2))
         surf = np.concatenate(

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.ops.normals import (
+from kss_icp.ops.normals import (
     estimate_normals,
     estimate_oriented_normals,
     orient_normals,

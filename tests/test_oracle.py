@@ -1,5 +1,5 @@
-"""Tests for the CPU oracle (kss_icp_tpu/oracle.py) and its agreement with
-the TPU pipeline's building blocks.
+"""Tests for the CPU oracle (kss_icp/oracle.py) and its agreement with
+the JAX pipeline's building blocks.
 
 The oracle is the measured-baseline generator (scripts/measure_baseline.py,
 VERDICT round-1 item #1): a faithful numpy/scipy replica of the reference
@@ -11,7 +11,7 @@ a known transform — the transfer.txt protocol (SURVEY.md §4.2).
 import numpy as np
 import pytest
 
-from kss_icp_tpu.oracle import (
+from kss_icp.oracle import (
     OracleInitRegistration,
     _axis_rotate,
     aivs_simplify,
@@ -73,7 +73,7 @@ def test_oracle_axis_rotations_match_jax_euler():
     # production euler_xyz_matrix encodes the same composition.
     import jax.numpy as jnp
 
-    from kss_icp_tpu.core.transforms import euler_xyz_matrix
+    from kss_icp.core.transforms import euler_xyz_matrix
 
     pts = _wavy(100, seed=2)
     ang = np.array([0.3, 1.1, 2.2])
@@ -85,7 +85,7 @@ def test_oracle_axis_rotations_match_jax_euler():
 def test_oracle_middle_align_matches_preshape():
     import jax.numpy as jnp
 
-    from kss_icp_tpu.core.preshape import middle_align
+    from kss_icp.core.preshape import middle_align
 
     src = _wavy(300, seed=3) * 2.0 + 0.5
     tgt = _wavy(400, seed=4)
@@ -116,9 +116,9 @@ def test_oracle_end_to_end_recovers_transfer():
 def test_oracle_and_pipeline_agree_on_golden_shape():
     # The oracle and the production pipeline must land in the same basin on
     # an easy pair: same data, both should reach RMSE < 0.05.
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.core.transforms import apply_similarity
-    from kss_icp_tpu.models.kss_icp import register_pair
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.core.transforms import apply_similarity
+    from kss_icp.models.kss_icp import register_pair
 
     tgt = _wavy(1000, seed=6)
     src = _axis_rotate(2, 0.9, tgt)

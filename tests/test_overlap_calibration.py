@@ -45,9 +45,9 @@ SEPARATION = 1.15
 def populations():
     import jax.numpy as jnp
 
-    from kss_icp_tpu.challenge import category_corpus, partial_corpus
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.models.kss_icp import (
+    from kss_icp.challenge import category_corpus, partial_corpus
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.models.kss_icp import (
         register_overlap_resampled,
         register_resampled,
         resample_pairs,
@@ -107,7 +107,7 @@ def populations():
 
 
 def test_adoption_margin_sits_in_gap(populations):
-    from kss_icp_tpu.config import DEFAULT_CONFIG
+    from kss_icp.config import DEFAULT_CONFIG
 
     margin = DEFAULT_CONFIG.overlap_adopt_margin
     win = max(r["adopt_ratio"] for r in populations["win"])
@@ -124,7 +124,7 @@ def test_adoption_margin_sits_in_gap(populations):
 
 
 def test_gate_ratio_sits_in_gap(populations):
-    from kss_icp_tpu.config import DEFAULT_CONFIG
+    from kss_icp.config import DEFAULT_CONFIG
 
     gate = DEFAULT_CONFIG.overlap_gate_ratio
     # Partial incumbents carry a heavy tail: trimmed << standard fitness.

@@ -11,7 +11,7 @@ import pytest
 
 
 def _tiny_cfg():
-    from kss_icp_tpu.config import KSSICPConfig
+    from kss_icp.config import KSSICPConfig
 
     return KSSICPConfig(
         rotation_steps=4, max_candidates=4, max_resample_points=256,
@@ -30,7 +30,7 @@ def _cropped_pair(rng, n=1200, keep=0.75):
     z = 0.4 * np.sin(2.5 * u) * np.cos(1.8 * v) + 0.25 * np.exp(
         -((u - 0.5) ** 2 + (v + 0.4) ** 2) / 0.1)
     base = np.stack([u, v, z], -1)
-    from kss_icp_tpu.stress import rot_xyz
+    from kss_icp.stress import rot_xyz
 
     R = rot_xyz(0.9, 0.5, 1.7)
     t = np.array([0.3, -0.2, 0.5])
@@ -50,7 +50,7 @@ def _cropped_pair(rng, n=1200, keep=0.75):
 def solved():
     import jax.numpy as jnp
 
-    from kss_icp_tpu.models.kss_icp import (
+    from kss_icp.models.kss_icp import (
         register_overlap_screen_resampled,
         resample_pairs,
     )
@@ -89,7 +89,7 @@ def test_contract(solved):
 def test_recovers_cropped_pose(solved):
     import jax.numpy as jnp
 
-    from kss_icp_tpu.core.transforms import apply_similarity
+    from kss_icp.core.transforms import apply_similarity
 
     res, (src, tgt, R, t), _ = solved
     # Basin correctness: a wrong basin lands at O(1) pose error on this
@@ -111,8 +111,8 @@ def test_screen_beats_field_selector_under_crop(solved):
     fitness 1.25e-2)."""
     import jax.numpy as jnp
 
-    from kss_icp_tpu.core.transforms import apply_similarity
-    from kss_icp_tpu.models.kss_icp import (
+    from kss_icp.core.transforms import apply_similarity
+    from kss_icp.models.kss_icp import (
         register_overlap_resampled,
         resample_pairs,
     )
@@ -149,8 +149,8 @@ def test_screen_beats_field_selector_under_crop(solved):
 def test_batched_contract():
     import jax.numpy as jnp
 
-    from kss_icp_tpu.core.transforms import Similarity
-    from kss_icp_tpu.models.kss_icp import (
+    from kss_icp.core.transforms import Similarity
+    from kss_icp.models.kss_icp import (
         overlap_screen_solve_batch,
         resample_pairs,
     )

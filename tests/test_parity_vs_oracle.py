@@ -35,8 +35,8 @@ MEDIAN_BOUND = 0.0140
 def test_all_golden_pairs_within_oracle_band():
     import sys
 
-    from kss_icp_tpu.parallel.batch import register_many
-    from kss_icp_tpu.stress import golden_corpus
+    from kss_icp.parallel.batch import register_many
+    from kss_icp.stress import golden_corpus
 
     sys.path.insert(0, str(REPO))
     from bench import bench_config  # the SHIPPING config — never a copy

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kss_icp_tpu.config import KSSICPConfig
-from kss_icp_tpu.core.transforms import apply_similarity, euler_xyz_matrix
-from kss_icp_tpu.io.formats import load_points
-from kss_icp_tpu.metrics import registration_measure
-from kss_icp_tpu.models.kss_icp import register_pair
+from kss_icp.config import KSSICPConfig
+from kss_icp.core.transforms import apply_similarity, euler_xyz_matrix
+from kss_icp.io.formats import load_points
+from kss_icp.metrics import registration_measure
+from kss_icp.models.kss_icp import register_pair
 from helpers import random_cloud
 
 # Small, fast config for synthetic tests.
@@ -128,7 +128,7 @@ def test_bundled_pair_recovers_recorded_rotation(reference_data_dir, model):
     was perturbed by the rotation recorded in transfer.txt ("ant x:1.56",
     "Cat y:1.56"); registering it onto the .wlop target must recover the
     inverse rotation (trace-angle residual < 10 deg)."""
-    from kss_icp_tpu.transfer import axis_rotation_matrix, load_transfer_log
+    from kss_icp.transfer import axis_rotation_matrix, load_transfer_log
 
     recs = {r.name: r for r in load_transfer_log(
         reference_data_dir / "registration" / "transfer.txt")}
@@ -156,9 +156,9 @@ def test_pose_tiebreak_select_prefers_true_pose():
     0.95-quantile NN distance picks the TRUE one."""
     import jax.numpy as jnp
 
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.models.kss_icp import _pose_tiebreak_select
-    from kss_icp_tpu.ops.nn import masked_mean_nn_sqdist
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.models.kss_icp import _pose_tiebreak_select
+    from kss_icp.ops.nn import masked_mean_nn_sqdist
 
     r0 = np.random.default_rng(0)
     n = 1200
@@ -202,9 +202,9 @@ def test_overlap_gate_ratio_signature(rng):
     (measured 0.41-0.97)."""
     import jax.numpy as jnp
 
-    from kss_icp_tpu.core.transforms import Similarity
-    from kss_icp_tpu.models.kss_icp import trimmed_fitness
-    from kss_icp_tpu.ops.nn import masked_mean_nn_sqdist
+    from kss_icp.core.transforms import Similarity
+    from kss_icp.models.kss_icp import trimmed_fitness
+    from kss_icp.ops.nn import masked_mean_nn_sqdist
 
     t = rng.uniform(-1, 1, (1200, 2))
     surf = np.concatenate(

@@ -1,9 +1,9 @@
-"""pointPipeline facade (kss_icp_tpu/pipeline.py), uniform normalization,
+"""pointPipeline facade (kss_icp/pipeline.py), uniform normalization,
 mesh IO converters and the content-hashed cache (SURVEY.md §5.4)."""
 
 import numpy as np
 
-from kss_icp_tpu.io.formats import (
+from kss_icp.io.formats import (
     border_indices,
     convert_obj_to_off,
     convert_off_to_obj,
@@ -14,12 +14,12 @@ from kss_icp_tpu.io.formats import (
     save_xyz,
     uniform_normalize,
 )
-from kss_icp_tpu.pipeline import (
+from kss_icp.pipeline import (
     pipeline_from_file,
     pipeline_from_points,
     pipeline_from_points_without_uniform,
 )
-from kss_icp_tpu.utils.cache import ArrayCache, content_key
+from kss_icp.utils.cache import ArrayCache, content_key
 from helpers import random_cloud
 
 

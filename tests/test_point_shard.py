@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.config import KSSICPConfig
-from kss_icp_tpu.models.icp import ICPParams, icp
-from kss_icp_tpu.ops.nn import masked_mean_nn_distance
-from kss_icp_tpu.parallel.mesh import make_mesh
-from kss_icp_tpu.parallel.point_shard import (
+from kss_icp.config import KSSICPConfig
+from kss_icp.models.icp import ICPParams, icp
+from kss_icp.ops.nn import masked_mean_nn_distance
+from kss_icp.parallel.mesh import make_mesh
+from kss_icp.parallel.point_shard import (
     icp_point_sharded,
     mean_nn_distance_sharded,
 )

@@ -4,8 +4,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.core.preshape import masked_centroid, masked_mean_radius, middle_align
-from kss_icp_tpu.core.transforms import apply_similarity
+from kss_icp.core.preshape import masked_centroid, masked_mean_radius, middle_align
+from kss_icp.core.transforms import apply_similarity
 
 
 def reference_middle_align(src, tgt):
@@ -74,8 +74,8 @@ def test_max_radius_scale_mode(rng):
     (initRegistrationKSS.hpp:166-170)."""
     import jax.numpy as jnp
 
-    from kss_icp_tpu.core.preshape import middle_align
-    from kss_icp_tpu.core.transforms import apply_similarity
+    from kss_icp.core.preshape import middle_align
+    from kss_icp.core.transforms import apply_similarity
     from helpers import random_cloud
 
     tgt = random_cloud(rng, 300).astype(np.float32)

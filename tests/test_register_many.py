@@ -4,9 +4,9 @@ import dataclasses
 
 import numpy as np
 
-from kss_icp_tpu.config import KSSICPConfig
-from kss_icp_tpu.parallel.batch import register_many
-from kss_icp_tpu.parallel.mesh import make_mesh
+from kss_icp.config import KSSICPConfig
+from kss_icp.parallel.batch import register_many
+from kss_icp.parallel.mesh import make_mesh
 from helpers import random_cloud
 
 
@@ -65,7 +65,7 @@ def test_register_pair_auto_escalates(rng):
     # (VERDICT round-1 item #2 — robustness must not be opt-in).
     import dataclasses as dc
 
-    from kss_icp_tpu.models.kss_icp import register_pair
+    from kss_icp.models.kss_icp import register_pair
 
     crude = dc.replace(CFG, rotation_steps=2, max_candidates=2,
                        refine_candidates=2, screen_iterations=4,
@@ -83,3 +83,19 @@ def test_register_pair_auto_escalates(rng):
     assert float(res_on.fitness) <= float(res_off.fitness) + 1e-6
     if float(res_off.fitness) > crude.escalate_threshold:
         assert float(res_on.fitness) < float(res_off.fitness)
+
+
+def test_register_many_mesh_pads_indivisible_batch(rng):
+    """3 pairs on the 8-device mesh: padded by repetition inside
+    register_batch, padding dropped, same transforms as without a mesh."""
+    pairs = _pairs(rng, 3)
+    mesh = make_mesh(("pairs",))
+    res_m, m_m = register_many(pairs, CFG, mesh=mesh, full_pad=512,
+                               escalate=False)
+    res_1, m_1 = register_many(pairs, CFG, full_pad=512, escalate=False)
+    assert m_m["rmse"].shape == (3,)
+    np.testing.assert_allclose(np.asarray(res_m.transform.rotation),
+                               np.asarray(res_1.transform.rotation), atol=1e-5)
+    # The sharded and single-device programs sum in different orders, so
+    # ICP stops at fixed points ~1e-5 apart on these 1e-4-RMSE solves.
+    np.testing.assert_allclose(m_m["rmse"], m_1["rmse"], atol=5e-5)

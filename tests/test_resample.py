@@ -4,7 +4,7 @@ uniformity (the property AIVS exists to provide)."""
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.ops.resample import (
+from kss_icp.ops.resample import (
     farthest_point_sampling,
     fps_points,
     voxel_downsample,

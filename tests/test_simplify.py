@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.ops.simplify import grid_simplify, hierarchy_simplify, octree_simplify
+from kss_icp.ops.simplify import grid_simplify, hierarchy_simplify, octree_simplify
 from helpers import random_cloud
 
 
@@ -56,7 +56,7 @@ def test_hierarchy_simplify_variation_stop(rng):
     # The surVar criterion (Method_CGAL.hpp:88): a curved cloud must split
     # deeper (=> keep more representatives) when max_variation is tightened,
     # even though every cluster is already under the size cap.
-    from kss_icp_tpu.ops.simplify import hierarchy_simplify
+    from kss_icp.ops.simplify import hierarchy_simplify
 
     n = 512
     u = rng.uniform(-1, 1, n)

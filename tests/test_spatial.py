@@ -4,7 +4,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.ops.spatial import (
+from kss_icp.ops.spatial import (
     box_coloring,
     build_voxel_grid,
     estimate_box_scale,

@@ -1,11 +1,11 @@
-"""TransferPC-equivalent synthetic pair generator (kss_icp_tpu/transfer.py)
+"""TransferPC-equivalent synthetic pair generator (kss_icp/transfer.py)
 against the reference tool's semantics (transferPC.hpp:66-180) and the
 transfer.txt ground-truth protocol (SURVEY.md §4.2)."""
 
 import numpy as np
 import pytest
 
-from kss_icp_tpu.transfer import (
+from kss_icp.transfer import (
     TransferRecord,
     apply_record,
     axis_rotation_matrix,
@@ -72,7 +72,7 @@ def test_rotation_matches_reference_formulas(rng):
 def test_rotation_agrees_with_core_transforms(rng):
     import jax.numpy as jnp
 
-    from kss_icp_tpu.core.transforms import rot_x, rot_y, rot_z
+    from kss_icp.core.transforms import rot_x, rot_y, rot_z
 
     for axis, fn in (("x", rot_x), ("y", rot_y), ("z", rot_z)):
         np.testing.assert_allclose(
@@ -110,11 +110,11 @@ def test_make_pair_and_recover_transform(rng, tmp_path):
     record (the transfer.txt oracle)."""
     import jax.numpy as jnp
 
-    from kss_icp_tpu.config import KSSICPConfig
-    from kss_icp_tpu.core.transforms import apply_similarity
-    from kss_icp_tpu.io.formats import load_points
-    from kss_icp_tpu.metrics import registration_measure
-    from kss_icp_tpu.models.kss_icp import register_pair
+    from kss_icp.config import KSSICPConfig
+    from kss_icp.core.transforms import apply_similarity
+    from kss_icp.io.formats import load_points
+    from kss_icp.metrics import registration_measure
+    from kss_icp.models.kss_icp import register_pair
 
     cloud = random_cloud(rng, 1500)
     rec = TransferRecord("wavy", "x", 1.56)

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from kss_icp_tpu.core.transforms import (
+from kss_icp.core.transforms import (
     Similarity,
     apply_similarity,
     compose,

@@ -4,8 +4,8 @@ View.h, and FileProcess/."""
 
 import numpy as np
 
-from kss_icp_tpu.utils.fileproc import browse_dir, find_point_clouds, stat_dir
-from kss_icp_tpu.viz import (
+from kss_icp.utils.fileproc import browse_dir, find_point_clouds, stat_dir
+from kss_icp.viz import (
     Trackball,
     add_quaternions,
     axis_angle_quaternion,

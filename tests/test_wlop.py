@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from kss_icp_tpu.ops.resample import fps_points
-from kss_icp_tpu.ops.wlop import wlop_resample
+from kss_icp.ops.resample import fps_points
+from kss_icp.ops.wlop import wlop_resample
 from helpers import random_cloud
 
 
